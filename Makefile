@@ -8,7 +8,7 @@
 #                                     54 passed / 61s — every module still
 #                                     imports and executes
 
-.PHONY: test test-fast test-smoke bench dryrun install native apidocs clean
+.PHONY: test test-fast test-smoke bench smoke dryrun install native apidocs clean
 
 apidocs:
 	python scripts/gen_api_docs.py
@@ -28,12 +28,15 @@ test-fast:
 test-smoke:
 	python -m pytest tests/ -x -q --smoke
 
-bench:
+bench:  # headline throughput on the GPU
 	python bench.py
+
+smoke:  # end-to-end proof on one GPU
+	python chip_smoke.py
 
 dryrun:
 	python __graft_entry__.py dryrun 8
 
 clean:
-	rm -rf build dist *.egg-info physicl_tpu/utils/native/*.so
+	rm -rf build dist *.egg-info physicl_tpu/utils/native/*.so .jax_cache
 	find . -name __pycache__ -type d -exec rm -rf {} +

@@ -14,7 +14,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 CELL0 = '''\
-# Anisotropic (Henyey-Greenstein) scattering — TPU extension.
+# Anisotropic (Henyey-Greenstein) scattering — extension.
 #
 # The reference package scatters isotropically only (physicl/light.py:262).
 # ScatterHenyeyGreensteinStep adds the standard single-parameter anisotropic

@@ -14,7 +14,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 CELL0 = '''\
-# Compton scattering with exact Klein-Nishina sampling — TPU extension.
+# Compton scattering with exact Klein-Nishina sampling — extension.
 #
 # The reference package has NO energy-changing interaction: its photons
 # keep E forever (physicl/light.py:262-359). Gamma-ray transport needs the

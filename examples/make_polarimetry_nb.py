@@ -16,7 +16,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 CELL0 = '''\
-# X-ray polarimetry with polarized Compton transport — TPU extension.
+# X-ray polarimetry with polarized Compton transport — extension.
 #
 # Compton polarimeters (IXPE-class instruments) measure linear
 # polarization through the AZIMUTHAL MODULATION of scattered photons:

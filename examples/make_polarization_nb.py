@@ -15,7 +15,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 CELL0 = '''\
-# Polarized Rayleigh transport with full Stokes vectors — TPU extension.
+# Polarized Rayleigh transport with full Stokes vectors — extension.
 #
 # Every photon carries a normalized Stokes vector (Q, U, V) and a local
 # frame vector (physicl_tpu.polarization); scattering applies the exact

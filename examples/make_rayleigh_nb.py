@@ -14,7 +14,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 CELL0 = '''\
-# Rayleigh scattering with the TRUE dipole phase function — TPU extension.
+# Rayleigh scattering with the TRUE dipole phase function — extension.
 #
 # The reference package applies the lambda^-4 Rayleigh CROSS-SECTION but
 # redirects isotropically (physicl/light.py:262-359). For sky/atmosphere

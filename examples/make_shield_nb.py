@@ -37,7 +37,7 @@ CELL0 = f'''\
 # decay w *= (1 - p) per step: the per-photon weight IS e^-tau exactly, so
 # the transmission estimate is draw-free at any depth. Russian roulette
 # culls the dead-weight population unbiasedly to keep the alive count (and
-# the compute) bounded. Both run inside the same fused TPU kernel; the
+# the compute) bounded. Both run inside the same fused kernel; the
 # weighted run uses 10x FEWER photons.
 import sys, os
 sys.path.insert(0, os.path.dirname(os.getcwd()))

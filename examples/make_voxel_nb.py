@@ -16,7 +16,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 CELL0 = '''\
-# 3-D voxel media INSIDE the fused kernel (TPU extension; the reference
+# 3-D voxel media INSIDE the fused kernel (extension; the reference
 # splices analytic n(r) C-expressions into its OpenCL kernel,
 # physicl/light.py:295-315, but has no gridded media at all).
 #

@@ -18,7 +18,7 @@ E_min, E_max = 0.1 * kT, 12 * kT
 one = light.planck_phot_distribution(E_min, E_max, T)
 print("single sample:", repr(one))
 
-# TPU-native batch: all N at once by inverse CDF
+# device batch: all N at once by inverse CDF
 N = 1_000_000
 E = light.planck_sample_E(N, E_min, E_max, T, bins=2000, seed=0)
 

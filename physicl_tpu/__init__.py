@@ -1,4 +1,4 @@
-"""physicl_tpu — a TPU-native particle/photon simulation framework.
+"""physicl_tpu — a JAX particle/photon simulation framework.
 
 Brand-new JAX/XLA/Pallas implementation with the capabilities of the reference
 OpenCL package (bcwarner/physicl): a code-units system, a generic
@@ -39,24 +39,6 @@ from physicl_tpu import functional  # noqa: F401
 
 __version__ = "0.1.0"
 
-
-def enable_compilation_cache(directory: str = "~/.cache/physicl_tpu_xla",
-                             min_compile_secs: float = 1.0) -> None:
-    """Persist XLA/Mosaic compilations to disk.
-
-    First compiles of the fused transport kernel take tens of seconds on a
-    cold backend; with the cache enabled, repeat runs (same shapes/steps)
-    start almost instantly. Call before the first ``Simulation.start()``.
-    """
-    import os
-
-    import jax
-
-    path = os.path.expanduser(directory)
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                      float(min_compile_secs))
 
 __all__ = [
     "Measurement",

@@ -4,7 +4,7 @@
 but as a plain ``(state, key) -> (state, records)`` function with no
 threads, no host loop, and no device-side effects — so the whole
 simulation composes with ``jax.jit``, ``jax.grad``, ``jax.vmap``, and
-``jax.lax`` like any other JAX program. This is a TPU-native capability
+``jax.lax`` like any other JAX program. This is a capability
 with no reference counterpart (the reference's host loop mutates Python
 objects; physicl/__init__.py:501-524): transport becomes a differentiable
 model whose physics parameters can be *fit* by gradient descent.

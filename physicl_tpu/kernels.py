@@ -1,4 +1,4 @@
-"""Declarative kernel bridge: the TPU-native counterpart of the reference's
+"""Declarative kernel bridge: the counterpart of the reference's
 ``CLInput``/``CLOutput``/``CLProgram`` metaprogrammed host<->device marshal
 (physicl/__init__.py:543-664).
 
@@ -213,7 +213,7 @@ class KernelStep(Step):
     forcing the whole pipeline onto the generic scan. The contract:
 
     * no reductions, gathers, or cross-particle mixing (inside the kernel
-      ``fn`` sees one VMEM tile, so a reduction would silently be
+      ``fn`` sees one tile, so a reduction would silently be
       tile-local);
     * touch only the packed transport fields — ``r, dr, v, dv, E, w`` and
       ``alive`` (which can only clear); use

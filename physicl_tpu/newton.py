@@ -3,7 +3,7 @@
 The reference updates every object with a per-object Python loop
 (``obj.dr = obj.v * sim.dt; obj.r += obj.dr``). Here the whole population
 advances in one fused elementwise transform over the ``(3, C)`` SoA arrays —
-a single VPU pass, no interpreter work, no host transfers.
+a single elementwise pass, no interpreter work, no host transfers.
 """
 
 from __future__ import annotations
@@ -153,7 +153,7 @@ class ChargedObject(Object):
     :class:`LorentzForceStep`'s per-particle ``q/m`` mode — the attributes
     land in ``state.extras['q']/['m']`` like any extra Object kwarg
     (reference Objects accept arbitrary kwargs, physicl/__init__.py:395-396;
-    charge dynamics itself is a TPU extension — the reference stores ``a``
+    charge dynamics itself is a extension — the reference stores ``a``
     but integrates no forces)."""
 
     def __init__(self, **kwargs):
@@ -190,7 +190,7 @@ def _field_fn(field, name):
 
 class LorentzForceStep(Step):
     """Charged-particle dynamics in electromagnetic fields via the Boris
-    pusher (TPU extension; the reference integrates no forces — its ``a``
+    pusher (extension; the reference integrates no forces — its ``a``
     attribute is stored unused, physicl/__init__.py:392).
 
     Velocity update for ``F = q (E + v x B)`` with the standard Boris
@@ -322,7 +322,7 @@ class PeriodicBoundaryStep(Step):
 class AbsorbingSphereStep(Step):
     """Deletes particles outside (default) or inside a sphere — escape
     spheres and central absorbers, the spherical counterpart of
-    :class:`AbsorbingBoundaryStep` (TPU extension; the reference has no
+    :class:`AbsorbingBoundaryStep` (extension; the reference has no
     geometry beyond the unused ``sim.bounds`` box).
 
     ``kill_inside=False`` (default): particles with ``|r - center| >

@@ -1,9 +1,9 @@
-"""On-device particle compaction (the TPU replacement for the reference's
+"""On-device particle compaction (the replacement for the reference's
 O(n^2) host-side ``sim.remove_obj`` list mutation, physicl/light.py:203-205).
 
 Deletion itself is just an alive-mask clear; compaction re-packs survivors to
 the front of the buffer (a cumsum scatter — one fused XLA pass) so the engine
-can shrink capacity and stop spending VPU lanes on dead photons in
+can shrink capacity and stop spending device work on dead photons in
 extinction-dominated workloads.
 """
 
@@ -94,14 +94,12 @@ def make_spatial_sort(spec: dict, mesh=None):
     flat (x-major) voxel index of each particle under the given
     ``light.voxel_density`` table spec.
 
-    Why: the fused kernel's voxel-table lookup is a dynamic row-RANGE
-    walk — each tile walks only the table rows its photons actually
-    index, so cost is set by the per-tile flat-index SPREAD, not the
-    table size (ops/fused._vmem_table_lookup). A sorted population
-    makes every tile a contiguous flat-index band: the locality-free
-    worst case (uniform positions, isotropic directions) collapses to
-    near-beam walk costs, bounded by the drift accumulated between
-    re-sorts. This is the classic particle-sort population control of
+    Why: a sorted population makes every kernel block gather from a
+    contiguous flat-index band of the voxel table
+    (ops/fused._bind_vox_field), so its loads coalesce and stay in cache
+    even in the locality-free worst case (uniform positions, isotropic
+    directions), up to the drift accumulated between re-sorts. Whether
+    that pays on the GPU is not measured yet. This is the classic particle-sort population control of
     event-based Monte Carlo transport, keyed to OUR table layout.
 
     Slot contract: a pure reorder, pipelineable with zero host traffic.

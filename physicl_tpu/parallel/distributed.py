@@ -1,22 +1,23 @@
 """Multi-host (multi-process) scale-out scaffolding.
 
 The reference is strictly single-device (SURVEY §5: no MPI/NCCL/Gloo
-anywhere; one OpenCL queue, physicl/__init__.py:427-432). The TPU-native
-distribution story for independent-photon transport is pure data parallelism
-over the particle axis: shard photons over EVERY chip of a pod slice, let
-XLA route the measurement psums over ICI within a host's slice and over DCN
-between hosts. This module supplies the three pieces a pod launch needs:
+anywhere; one OpenCL queue, physicl/__init__.py:427-432). The distribution
+story for independent-photon transport is pure data parallelism over the
+particle axis: shard photons over EVERY device of every host, and let XLA
+route the measurement psums (NCCL on GPUs: NVLink within a host, the
+network between hosts). This module supplies the three pieces a multi-host
+launch needs:
 
 1. :func:`init_distributed` — process-group setup (one call per host);
 2. :func:`make_pod_mesh` — a 1-D photon mesh over all global devices,
-   ICI-major so that intra-slice collectives never touch DCN;
+   host-major so that each host's devices are contiguous;
 3. multiprocess-aware state placement (``shard_state`` routes here when the
    mesh spans processes).
 
 Launch recipe (one process per host; see docs/distributed.md):
 
-    # host i of N (TPU pod slice: jax.distributed auto-detects everything)
-    physicl_tpu.parallel.init_distributed()
+    # host i of N
+    physicl_tpu.parallel.init_distributed("host0:1234", N, i)
     mesh = physicl_tpu.parallel.make_pod_mesh()
     sim = Simulation(mesh=mesh, ...)   # identical script on every host
 
@@ -41,9 +42,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      **kwargs) -> None:
     """Initialize the JAX process group (wraps ``jax.distributed.initialize``).
 
-    On TPU pod slices all arguments are auto-detected from the environment —
-    call with no arguments. For manual/CPU clusters pass the coordinator
-    address (``"host0:port"``), process count, and this process's id.
+    Pass the coordinator address (``"host0:port"``), the process count and
+    this process's id; on a GPU machine nothing in the environment supplies
+    them.
     Safe to call once per process, before any other JAX API touches devices.
     """
     jax.distributed.initialize(
@@ -69,30 +70,19 @@ def mesh_spans_processes(mesh) -> bool:
 
 
 def make_pod_mesh(devices=None):
-    """1-D photon mesh over ALL global devices (every process's chips).
+    """1-D photon mesh over ALL global devices (every process's devices).
 
-    Ordering is ICI-major: each host's devices are contiguous in the mesh,
-    so neighboring shards live on the same ICI domain and only the (tiny)
-    replicated record reductions cross DCN. Single-process: equivalent to
-    :func:`physicl_tpu.parallel.make_mesh`.
+    Ordering is host-major: each host's devices are contiguous in the mesh,
+    so only the (tiny) replicated record reductions cross between hosts.
+    Single-process: equivalent to :func:`physicl_tpu.parallel.make_mesh`.
     """
     from physicl_tpu.parallel.sharding import PHOTON_AXIS
     from jax.sharding import Mesh
 
     if devices is None:
         if jax.process_count() > 1:
-            try:
-                from jax.experimental import mesh_utils
-
-                # (dcn=processes, ici=local devices), flattened ICI-major
-                hybrid = mesh_utils.create_hybrid_device_mesh(
-                    (jax.local_device_count(),), (jax.process_count(),))
-                devices = np.asarray(hybrid).reshape(-1)
-            except ValueError:
-                # no slice topology info (CPU clusters): process-major order
-                # gives the same local-devices-contiguous property
-                devices = np.asarray(sorted(
-                    jax.devices(), key=lambda d: (d.process_index, d.id)))
+            devices = np.asarray(sorted(
+                jax.devices(), key=lambda d: (d.process_index, d.id)))
         else:
             devices = np.asarray(jax.devices())
     return Mesh(np.asarray(devices).reshape(-1), (PHOTON_AXIS,))
@@ -101,7 +91,7 @@ def make_pod_mesh(devices=None):
 def process_local_slice(mesh, global_shape: tuple) -> tuple:
     """(start, size) of this process's contiguous span of the particle axis.
 
-    Valid for ICI-major pod meshes built by :func:`make_pod_mesh`, where
+    Valid for host-major meshes built by :func:`make_pod_mesh`, where
     each process's devices occupy one contiguous block of the 1-D mesh.
     """
     devs = list(mesh.devices.reshape(-1))

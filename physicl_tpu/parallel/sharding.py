@@ -2,12 +2,13 @@
 
 Design (SURVEY.md §2 "Parallelism strategies", §5 "Distributed communication"):
 the only compute parallelism the physics admits is data parallelism over
-independent photons — the TPU-native form of the reference's one-OpenCL-
-work-item-per-photon global size (physicl/__init__.py:640-644), lifted from
-one device to a mesh. State lives sharded in each chip's HBM; per-iteration
-physics is embarrassingly parallel; measurement reductions (counts, sign
-tallies, plane crossings) become psum collectives over ICI; host<->device
-traffic stays at init and final readback.
+independent photons — the reference's one-OpenCL-work-item-per-photon global
+size (physicl/__init__.py:640-644), lifted from one device to a mesh. State
+lives sharded in each device's memory; per-iteration physics is
+embarrassingly parallel; measurement reductions (counts, sign tallies, plane
+crossings) become psum collectives, which XLA hands to NCCL on GPUs;
+host<->device traffic stays at init and final readback. GPUs of one host are
+joined all to all, so a 1-D mesh over the photon axis is the whole layout.
 """
 
 from __future__ import annotations
@@ -80,7 +81,8 @@ def shard_state(state: SimState, mesh: Mesh) -> SimState:
 
 def build_sharded_fused(plan, capacity: int, mesh: Mesh):
     """Fused transport chunk under shard_map: each shard advances its local
-    photons K iterations in VMEM; record rows cross chips as one psum.
+    photons K iterations with the plan's builder; record rows cross devices
+    as one psum.
 
     Matches build_fused_chunk's signature: (packed (15,C), dts, emit_starts, seed, k_act)
     -> (packed, rec). Seeds are decorrelated per shard via axis_index.
@@ -88,18 +90,10 @@ def build_sharded_fused(plan, capacity: int, mesh: Mesh):
     from jax import shard_map
     from physicl_tpu.ops import fused as F
 
-    import dataclasses
-
     n_shards = mesh.devices.size
     if capacity % n_shards:
         raise ValueError(f"capacity {capacity} not divisible by mesh size {n_shards}")
     local_cap = capacity // n_shards
-    # Under shard_map the kernel's operand/result buffers count against the
-    # ~16MB scoped-VMEM budget (unlike plain jit, where they live in HBM):
-    # 512-row tiles overflow it (15-plane in+out windows alone are 15.7MB),
-    # so cap sharded kernels at 256 rows.
-    if plan.tile_rows > 256:
-        plan = dataclasses.replace(plan, tile_rows=256)
     kern = F.build_fused_chunk(plan, local_cap)
 
     def per_shard(packed_l, dts, emit_starts, seed, k_act):

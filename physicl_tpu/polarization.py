@@ -1,6 +1,6 @@
 """Polarized photon transport: Stokes-vector Rayleigh/Thomson scattering.
 
-TPU extension with no reference counterpart (the reference's scattering is
+extension with no reference counterpart (the reference's scattering is
 scalar-intensity only, physicl/light.py:262-359); this module adds the full
 Stokes formalism on top of the same collision model so polarization
 observables (sky polarization, scattering-induced polarization degrees,
@@ -351,7 +351,7 @@ class ScatterPolarizedComptonStep(Step):
     McMaster 1961) off cold electrons — the physics of X-ray polarimetry
     (IXPE-class instruments, polarized gamma transport).
 
-    TPU extension with no reference counterpart. The scattering angle is
+    extension with no reference counterpart. The scattering angle is
     drawn from the exact unpolarized Klein-Nishina law (Kahn < 1+sqrt(3)
     <= Koblinger per photon, shared with
     :class:`physicl_tpu.light.ScatterComptonStep` — valid because the

@@ -20,7 +20,7 @@ Design differences from the reference (deliberate, documented):
 * ``__array_finalize__`` propagates unit metadata on views/slices instead of the
   reference's broken ``self.scale(...)`` call (quirk list in SURVEY.md).
 
-In the TPU engine, units never reach the compiled hot loop: ``Measurement`` stores
+In the engine, units never reach the compiled hot loop: ``Measurement`` stores
 values already converted to code units, and the engine extracts the raw stored
 array (``raw_code_value``) at the trace boundary, so unit bookkeeping is
 host-construction-time only and compiles away entirely.
@@ -163,7 +163,7 @@ def _as_si(x):
 def raw_code_value(x):
     """Raw stored (code-unit) ndarray of a Measurement, or ``np.asarray(x)``.
 
-    This is the trace-boundary extractor: the TPU engine consumes raw code-unit
+    This is the trace-boundary extractor: the engine consumes raw code-unit
     arrays so unit metadata never enters jit-compiled code.
     """
     if isinstance(x, Measurement):

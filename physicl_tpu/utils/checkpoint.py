@@ -36,8 +36,8 @@ def save_checkpoint(sim, path: str) -> None:
             v = getattr(state, f)
             if f == "key" and v is not None and jax.dtypes.issubdtype(
                     v.dtype, jax.dtypes.prng_key):
-                # typed key arrays (prng_impl="rbg"/"threefry", the TPU
-                # default) serialize as raw key data + the impl name
+                # typed key arrays (prng_impl="rbg"/"threefry")
+                # serialize as raw key data + the impl name
                 key_impl = str(jax.random.key_impl(v))
                 v = jax.random.key_data(v)
             host[f] = np.asarray(jax.device_get(v))

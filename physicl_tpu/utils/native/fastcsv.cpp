@@ -1,7 +1,7 @@
 // Fast CSV serialization for measurement dumps.
 //
 // The reference's persistence layer is a Python str-join CSV writer
-// (physicl/__init__.py:365-378). At TPU scale a measurement dump can be
+// (physicl/__init__.py:365-378). At device scale a measurement dump can be
 // millions of rows; Python-level float formatting dominates. This native
 // writer serializes a dense row-major double matrix with the shortest
 // round-trip representation, ~20-40x faster than the interpreter path.

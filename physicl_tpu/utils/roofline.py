@@ -1,39 +1,35 @@
-"""Hardware-utilization accounting for fused transport kernels.
+"""Hardware-utilization accounting for fused transport chunks.
 
 The reference ships no performance model at all (BASELINE.md: every number
 is reverse-engineered from notebook wall-clocks); "matching or beating" a
 machine needs a ceiling to measure against, not just a baseline. This
-module derives a flops+bytes model for one fused-kernel iteration by
-TRACING the kernel's own op pipeline (``ops.fused._emit_iteration`` — the
-same code both the Mosaic kernel and the CPU twin execute) to a jaxpr and
-counting primitive work, then positions a measured photon-steps/s rate
-against the chip's VPU and HBM roofs.
+module derives an ops+bytes model for one fused-chunk iteration by TRACING
+the chunk's own op pipeline (``ops.fused._emit_iteration`` — the same code
+the Triton kernel and the XLA chunk execute) to a jaxpr and counting
+primitive work, then positions a measured photon-steps/s rate against the
+device's compute and memory roofs.
 
 The count is a *model*, documented conservative choices:
 
-* element-wise primitives cost 1 VPU op per output element;
-  divides/sqrts 4 (reciprocal-iteration expansions); true
-  transcendentals (exp/log/sin/cos/...) 8 — the fused kernels avoid them
-  (fast_trig polynomials), so this term is usually zero;
-* hardware PRNG draws cost 4 ops per element (prng_random_bits + the
-  bits->unit float conversion); the traced hash-PRNG twin is NOT counted
-  (the Mosaic kernel uses the hardware generator);
+* element-wise primitives cost 1 op per output element; divides/sqrts 4
+  (reciprocal-iteration expansions); true transcendentals
+  (exp/log/sin/cos/...) 8 — the fused op bodies mostly avoid them
+  (fast_trig polynomials), so this term is usually small;
+* random draws are the counter-based hash of ``ops.fused._Rng``, traced
+  like any other op body code and counted as its integer ops (about 20 per
+  element per draw); ``prng_draw_elems`` tallies the draws;
 * pure data movement (broadcast/reshape/slice/select-index bookkeeping)
-  counts 0 — VMEM-resident relayouts overlap ALU work;
-* in-VMEM table gathers (voxel media) cost 2 ops per element per segment
-  via their take_along_axis/select expansion, which the jaxpr count
-  captures directly on the generic form (1 gather) — an underestimate for
-  multi-segment fused tables (documented in docs/performance.md).
+  counts 0 — register-resident relayouts overlap ALU work;
+* table gathers (voxel media) cost 2 ops per element.
 
-HBM bytes per chunk are exact from the plan: the packed state crosses
-HBM->VMEM once and back once per chunk (the whole point of the fused
-design), plus record rows and stream planes.
+Device-memory bytes per chunk are exact for the Triton kernel: the packed
+state crosses device memory once each way per chunk, plus record rows and
+stream planes. (The XLA chunk moves the state every iteration instead.)
 
-Peaks (``PEAKS``) are per-chip, from public TPU v5e specs: 819 GB/s HBM
-bandwidth; VPU f32 peak = 8x128 vector lanes x 4 ALUs x 1 FMA/cycle
-(counted as 2 ops, matching the model's separate mul/add counting) x
-~0.94 GHz ~= 7.7e12 ops/s. Unknown device kinds report utilizations as
-None rather than against a guessed roof.
+Peaks (``PEAKS``) are per device kind: (f32 ops/s, memory bytes/s). The
+table is empty until a benchmark adds measured GPU entries keyed by
+``device_kind`` with their source; until then every device reports
+utilizations as None rather than against a guessed roof.
 """
 
 from __future__ import annotations
@@ -47,15 +43,8 @@ import numpy as np
 
 __all__ = ["PEAKS", "iteration_cost", "roofline_report"]
 
-# per-chip peaks: (vpu_f32_ops_per_s, hbm_bytes_per_s)
-PEAKS = {
-    # TPU v5 lite (v5e): VPU is an (8, 128) vector unit with 4 ALUs per
-    # lane-slot at ~0.94 GHz; each ALU issues one FMA/cycle, counted as
-    # 2 ops to match the model's separate mul/add counting =>
-    # 8*128*4*2*0.94e9 ~= 7.7e12 ops/s. HBM2E: 819 GB/s (public v5e spec).
-    "TPU v5 lite": (7.7e12, 819e9),
-    "TPU v5e": (7.7e12, 819e9),
-}
+# device_kind -> (f32 ops/s, memory bytes/s), each entry with its source
+PEAKS: dict = {}
 
 _ELEMENTWISE_1 = {
     "add", "sub", "mul", "max", "min", "and", "or", "xor", "not", "neg",
@@ -73,15 +62,12 @@ _FREE = {"broadcast_in_dim", "reshape", "squeeze", "transpose", "slice",
          "dynamic_slice", "dynamic_update_slice", "pad", "rev",
          "expand_dims"}
 
-_PRNG_OPS_PER_ELEMENT = 4  # prng_random_bits + bits->unit conversion
-
-
 def _size(aval) -> int:
     return int(np.prod(aval.shape)) if aval.shape else 1
 
 
 def _count_jaxpr(jaxpr) -> dict:
-    """Walk a (closed) jaxpr counting modeled VPU ops. Control-flow
+    """Walk a (closed) jaxpr counting modeled ALU ops. Control-flow
     bodies (while/scan/cond) are counted ONCE — their trip count is not
     statically recoverable — so ``uncounted_loop_bodies`` flags any such
     body: callers must treat utilizations as unreliable when it is
@@ -132,44 +118,29 @@ def _count_jaxpr(jaxpr) -> dict:
     return c
 
 
-class _CountingRng:
-    """Trace stub standing in for the kernel's hardware PRNG: returns
-    valid tracers at zero jaxpr cost and tallies draw elements, which are
-    charged at the hardware generator's modeled rate afterwards. Mirrors
-    the full ``_Rng`` surface including the ``salt`` kwarg (unused by the
-    current static-unroll samplers; kept so any future salted call site
-    cannot crash the model)."""
+def _counting_rng(seed, k):
+    """The chunk's own hash stream, tallying draw elements."""
+    from physicl_tpu.ops import fused as F
 
-    def __init__(self):
-        self.draw_elems = 0
+    class _CountingRng(F._Rng):
+        draw_elems = 0
 
-    def bits(self, shape, salt=None):
-        self.draw_elems += int(np.prod(shape))
-        return jnp.zeros(shape, jnp.int32)
+        def bits(self, shape, salt=None):
+            _CountingRng.draw_elems += int(np.prod(shape))
+            return super().bits(shape, salt)
 
-    def uniform(self, shape, salt=None):
-        self.draw_elems += int(np.prod(shape))
-        return jnp.full(shape, 0.5, jnp.float32)
-
-    def uniform_pair(self, shape, salt=None):
-        # one 32-bit draw yields both angles (plan.packed_angles)
-        self.draw_elems += int(np.prod(shape))
-        return (jnp.full(shape, 0.5, jnp.float32),
-                jnp.full(shape, 0.5, jnp.float32))
-
-    def _hash_bits(self, shape, salt=None):
-        return self.bits(shape)
+    return _CountingRng(seed, k)
 
 
 def iteration_cost(plan, capacity: int) -> dict:
     """Modeled per-iteration cost of one fused chunk iteration over the
-    WHOLE population: VPU ops, transcendental count, PRNG draw elements,
-    and the per-chunk HBM byte traffic."""
+    WHOLE population: ALU ops, transcendental count, PRNG draw elements,
+    and the per-chunk device-memory byte traffic."""
     from physicl_tpu.ops import fused as F
 
     rows = capacity // F._LANE
     nf = F._NF + len(plan.extras)
-    rng = _CountingRng()
+    rng = _counting_rng(jnp.int32(0), jnp.int32(0))
     gidx = jnp.zeros((rows, F._LANE), jnp.int32)
     emit_ref = jnp.zeros((max(1, sum(1 for op in plan.ops
                                      if op.kind == "emit")),
@@ -187,8 +158,7 @@ def iteration_cost(plan, capacity: int) -> dict:
         fields0, jnp.int32(0), jnp.float32(1e-3), jnp.float32(0.0),
         jnp.float32(0.0), jnp.float32(0.0), jnp.float32(0.0))
     counts = _count_jaxpr(jaxpr.jaxpr)
-    counts["vpu_ops"] += _PRNG_OPS_PER_ELEMENT * rng.draw_elems
-    counts["prng_draw_elems"] = rng.draw_elems
+    counts["prng_draw_elems"] = type(rng).draw_elems
     n = capacity
     counts["vpu_ops_per_particle"] = counts["vpu_ops"] / n
 

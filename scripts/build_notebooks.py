@@ -72,7 +72,7 @@ nb(os.path.join(OUT, "planck_spectrum.ipynb"), [
            "one photon per call with per-bin `scipy.quad` integration "
            "(physicl/light.py:73-106); here the Wien-form density is "
            "integrated in closed form and **10⁷ energies are sampled in one "
-           "fused device dispatch** (~1.3×10⁹ photons/s on a v5e chip)."),
+           "fused device dispatch**."),
     ("code", HEADER),
     ("code", """\
 T = 5778.0  # solar surface temperature [K]
@@ -291,7 +291,7 @@ ax.text(sizes[0], 2.6e4, "reference (OpenCL, recorded) ≈ 2×10⁴",
         fontsize=9, color="#52514e")
 ax.set_xlabel("photons")
 ax.set_ylabel("photon-steps / s / chip")
-ax.set_title("Isotropic-scatter transport throughput (TPU v5e)")
+ax.set_title("Isotropic-scatter transport throughput")
 ax.legend(frameon=False, loc="lower right")
 plt.tight_layout(); plt.show()
 print(f"peak fused: {max(fused):.3g} photon-steps/s "

@@ -38,6 +38,7 @@ MODULES = [
     "physicl_tpu.functional",
     "physicl_tpu.population",
     "physicl_tpu.ops.fused",
+    "physicl_tpu.ops.families",
     "physicl_tpu.ops.pipeline",
     "physicl_tpu.ops.compaction",
     "physicl_tpu.parallel.sharding",

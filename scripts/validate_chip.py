@@ -1,9 +1,11 @@
-"""On-chip physics validation (run on the attached TPU: no pytest, no CPU
-emulation — this exercises the hardware-PRNG fused kernel end to end).
+"""On-chip physics validation: run on the GPU (no pytest, no CPU
+emulation — this exercises the fused chunk end to end on the card).
+
+    python3 scripts/validate_chip.py      # also phase 4 of chip_smoke.py
 
 Checks the reference's statistical invariants plus kernel-specific ones:
 
-1. absorption decay rate per step == 1 - pcoll (hardware-PRNG uniformity);
+1. absorption decay rate per step == 1 - pcoll (uniformity of the draws);
 2. reference acceptance test: survival proportional to e^-1 at x = 1/(nA);
 3. isotropy relaxation follows 0.5 + 0.5*(1 - pcoll)^k analytically;
 4. scatter directions: |v| = c exactly, theta recovered from vz uniform

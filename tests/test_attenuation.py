@@ -1,4 +1,4 @@
-"""Energy- and space-dependent absorption — TPU extensions of
+"""Energy- and space-dependent absorption — extensions of
 ScatterDeleteStep (the reference's absorption is constant-coefficient,
 physicl/light.py:131-260): ``pcoll = A * A_fn(E) * n(r) * |dr|``.
 

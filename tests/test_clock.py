@@ -1,6 +1,6 @@
 """Long-run clock integrity (VERDICT r2 weak #3).
 
-TPU scalars are f32 (no x64): a bare on-device ``t += dt`` accumulates
+Device scalars are f32 (no x64): a bare on-device ``t += dt`` accumulates
 O(n*eps) drift — measurably wrong at a few hundred thousand iterations
 (plain f32 crosses t=0.25 with dt=1e-6 ~350 iterations late, and t=1.0
 ~9500 iterations EARLY). The engine therefore keeps the clock exact:
@@ -12,7 +12,7 @@ O(n*eps) drift — measurably wrong at a few hundred thousand iterations
   bit-for-bit (ops/pipeline.py:_host_schedule), so ``sim.ts`` stays
   byte-identical between paths. (A plain-f64 host replay was tried and
   rejected: exactness of the f64 sum is not the goal — agreement with
-  the device clock is; see NOTES.md.)
+  the device clock is.)
 
 Both must hit ``t >= T`` within 1 iteration of the exact f64 count
 (reference keeps f64 ``sim.t`` on the host, physicl/__init__.py:341-343).

@@ -1,4 +1,4 @@
-"""Compton scattering (Klein-Nishina) — TPU extension tests.
+"""Compton scattering (Klein-Nishina) — extension tests.
 
 The reference has no energy-changing interaction (its photons keep E forever,
 physicl/light.py:262-359); ScatterComptonStep adds exact Klein-Nishina

@@ -1,4 +1,4 @@
-"""Thermal Comptonization (ScatterComptonStep(theta_e=...)) — TPU extension.
+"""Thermal Comptonization (ScatterComptonStep(theta_e=...)) — extension.
 
 Electrons drawn from a non-relativistic Maxwell distribution, collisions
 weighted by the exact relativistic flux factor (1 - beta.n), exact KN in

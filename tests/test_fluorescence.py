@@ -1,5 +1,5 @@
 """Fluorescent re-emission (``ScatterDeleteStep(fluorescence=(Y, E_f))``,
-TPU extension — the reference's absorption can only delete,
+extension — the reference's absorption can only delete,
 physicl/light.py:146-158).
 
 Key invariants, enforced on BOTH execution paths:

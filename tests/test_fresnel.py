@@ -1,5 +1,5 @@
 """RefractiveInterfaceStep: Fresnel reflection / Snell refraction at plane
-interfaces (TPU extension — the reference has no geometry beyond an infinite
+interfaces (extension — the reference has no geometry beyond an infinite
 homogeneous medium). Validates exact single-photon kinematics, Snell's law
 per transmitted photon, Fresnel reflectance statistics, total internal
 reflection (deterministic), match_speed=True c/n speeds, and a two-interface

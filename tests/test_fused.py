@@ -468,7 +468,7 @@ def test_kernel_cache_key_stable_for_bound_methods():
                                       emit_v=(1., 0., 0.), c_val=1.0,
                                       emit_sched_idx=0)],
                            n_rec_cols=2, chunk=4, tile_rows=128,
-                           interpret=True)
+                           builder="xla")
 
     k1 = F.build_fused_chunk(plan(s1.icdf), 16384)
     k2 = F.build_fused_chunk(plan(s1.icdf), 16384)

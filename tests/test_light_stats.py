@@ -226,7 +226,7 @@ def test_scatter_constants_use_code_units():
 
 
 # ---------------------------------------------------------------------------
-# Henyey-Greenstein anisotropic scattering (TPU extension: the reference has
+# Henyey-Greenstein anisotropic scattering (extension: the reference has
 # only isotropic scattering; HG is the standard single-parameter anisotropic
 # phase function and <cos theta> == g is its defining property).
 # ---------------------------------------------------------------------------
@@ -309,7 +309,7 @@ def test_hg_g_validation():
 
 
 # ---------------------------------------------------------------------------
-# Rayleigh dipole phase function (TPU extension): the reference applies the
+# Rayleigh dipole phase function (extension): the reference applies the
 # lambda^-4 cross-section but redirects isotropically; ScatterRayleighStep
 # samples the TRUE (3/8)(1+cos^2) phase via the closed-form Cardano inverse
 # CDF. Defining property: <cos^2 theta> = 2/5 (isotropic gives 1/3).

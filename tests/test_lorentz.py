@@ -1,5 +1,5 @@
 """LorentzForceStep (Boris pusher) — charged-particle dynamics in E/B
-fields (TPU extension; the reference stores ``a`` but integrates no forces).
+fields (extension; the reference stores ``a`` but integrates no forces).
 Validates the three defining Boris properties: exact speed conservation on
 gyro-orbits, the discrete gyro-phase 2*atan(h|B|) per step, exact
 constant-E acceleration; plus the ExB drift, per-particle q/m, spatially

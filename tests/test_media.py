@@ -131,7 +131,7 @@ def test_voxel_density_oversize_grid_refuses_fused_with_reason():
 def test_voxel_density_fused_constant_grid_exact_decay():
     """A voxel medium UNDER the table budget fuses (VERDICT r3 #1: the
     reference keeps user n(r) inside its kernel, physicl/light.py:295-315
-    — the TPU build must not fall off a 31x cliff for gridded media) and
+    — gridded media must not fall off to the generic scan) and
     reproduces the exact constant-density implicit-capture decay on both
     paths."""
     c_dt = float(light.c) * 0.001
@@ -184,10 +184,9 @@ def test_voxel_density_fused_vs_generic_gradient_parity():
 
 
 def test_vox_kernel_field_matches_direct_lookup():
-    """The in-kernel voxel field (segmented LANE gather over the
-    compact (V/128, 128) table, ops/fused.py) computes EXACTLY the same values
-    as voxel_density's direct XLA gather — both interps, positions inside,
-    outside and on clip edges, with multi-segment tables (V > tile_rows)."""
+    """The in-kernel voxel field (direct gather from the flat table,
+    ops/fused.py) computes EXACTLY the same values as voxel_density's XLA
+    gather — both interps, positions inside, outside and on clip edges."""
     from physicl_tpu.ops import fused as F
 
     rng = np.random.default_rng(7)
@@ -199,9 +198,7 @@ def test_vox_kernel_field_matches_direct_lookup():
                                  interp=interp, outside=-2.5)
         spec = fn.vox_spec
         assert spec["kind"] == "f32"    # continuous values: no codebook
-        tile_rows = 256
-        tab = F._vox_table_of(spec)
-        kfn = F._bind_vox_field(spec, tab, tile_rows)
+        kfn = F._bind_vox_field(spec, F._vox_table_of(spec))
         # positions spanning coverage + outside + edges, as (256, 128) tiles
         lo = np.array([-1, 0.5, 2.0]) - 2
         hi = lo + np.array(shape) * np.array([0.3, 0.7, 0.11]) + 4
@@ -288,10 +285,9 @@ def test_voxel_codebook_tier_selection():
 
 
 def test_vox_codebook_kernel_field_matches_direct_lookup():
-    """The packed-codebook in-kernel field (code-word walk + bit extract
-    + codebook dequant, ops/fused.py) computes EXACTLY the same values as
-    the direct XLA gather — all three code widths, both interps, indices
-    spanning every byte lane of the packed words."""
+    """Codebook-tier grids (the tier light.voxel_density picks for <= 256
+    distinct values) read through the in-kernel field give EXACTLY the
+    generic callable's values — all three code widths, both interps."""
     import jax
     from physicl_tpu.ops import fused as F
 
@@ -315,7 +311,7 @@ def test_vox_codebook_kernel_field_matches_direct_lookup():
         # eager like fn: under jit XLA contracts the trilinear
         # multiply-adds into FMAs, a rounding difference this exactness
         # test must not absorb (both production paths run jitted)
-        kfn = F._bind_vox_field(spec, F._vox_table_of(spec), 256)
+        kfn = F._bind_vox_field(spec, F._vox_table_of(spec))
         lo = np.array([-1, 0.5, 2.0]) - 2
         hi = lo + np.array(shape) * np.array([0.3, 0.7, 0.11]) + 4
         pts = rng.uniform(lo, hi, size=(256 * 128, 3)).astype(np.float32)
@@ -329,8 +325,8 @@ def test_vox_codebook_kernel_field_matches_direct_lookup():
 
 @pytest.mark.slow
 def test_vox_codebook_kernel_field_64cube_exact():
-    """Full 64^3 CT-scale codebook walk (514 rows) — exact vs the direct
-    gather, including positions outside coverage."""
+    """Full 64^3 CT-scale codebook grid — exact vs the generic gather,
+    including positions outside coverage."""
     import jax
     from physicl_tpu.ops import fused as F
 
@@ -340,7 +336,7 @@ def test_vox_codebook_kernel_field_64cube_exact():
     fn = light.voxel_density(grid, spacing=0.5)
     spec = fn.vox_spec
     assert spec["kind"] == "codebook" and spec["bits"] == 8
-    kfn = jax.jit(F._bind_vox_field(spec, F._vox_table_of(spec), 256))
+    kfn = jax.jit(F._bind_vox_field(spec, F._vox_table_of(spec)))
     fn = jax.jit(fn)   # same jit context: identical FMA contraction
     pts = rng.uniform(-2.0, 34.0, size=(256 * 128, 3)).astype(np.float32)
     r0, r1, r2 = (jnp.asarray(pts[:, i].reshape(256, 128))
@@ -351,9 +347,8 @@ def test_vox_codebook_kernel_field_64cube_exact():
 
 @pytest.mark.slow
 def test_vox_trilinear_kernel_field_64cube_exact():
-    """Full 64^3 TRILINEAR codebook walk (8 per-corner range walks over
-    the 512-row code table) — vs the direct 8-corner gather, including
-    positions outside coverage."""
+    """Full 64^3 TRILINEAR codebook grid — vs the generic 8-corner
+    gather, including positions outside coverage."""
     import jax
     from physicl_tpu.ops import fused as F
 
@@ -363,14 +358,14 @@ def test_vox_trilinear_kernel_field_64cube_exact():
     fn = light.voxel_density(grid, spacing=0.5, interp="trilinear")
     spec = fn.vox_spec
     assert spec["kind"] == "codebook" and spec["bits"] == 8
-    kfn = jax.jit(F._bind_vox_field(spec, F._vox_table_of(spec), 256))
+    kfn = jax.jit(F._bind_vox_field(spec, F._vox_table_of(spec)))
     fn = jax.jit(fn)
     pts = rng.uniform(-2.0, 34.0, size=(256 * 128, 3)).astype(np.float32)
     r0, r1, r2 = (jnp.asarray(pts[:, i].reshape(256, 128))
                   for i in range(3))
     # XLA may contract the wx*wy*wz*corner chains into FMAs differently
-    # across the two jit programs (the table walk changes the fusion
-    # context), so jitted-vs-jitted equality is 1 ulp, not bitwise; the
+    # across the two jit programs, so jitted-vs-jitted equality is 1 ulp,
+    # not bitwise; the
     # eager kernel-field test above pins BITWISE equality, and the
     # end-to-end gradient-parity test pins exact fused-vs-generic
     # weights through the production pipelines.

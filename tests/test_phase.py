@@ -1,5 +1,5 @@
 """User-defined phase functions (ScatterPhaseFunctionStep): exact inverse
-CDFs and tabulated phase tables, fused + generic (TPU extension — the
+CDFs and tabulated phase tables, fused + generic (extension — the
 reference's only angular redistribution is isotropic)."""
 
 import jax.numpy as jnp

@@ -47,7 +47,8 @@ def test_fused_plan_reports_fused_mode():
     assert s.plan_report.mode == "fused"
     assert s.plan_report.refusals == []
     text = s.explain_plan()
-    assert "fused" in text and "Pallas" in text
+    assert "fused" in text and "fused chunk builder: xla" in text
+    assert s.plan_report.builder == "xla"
 
 
 def test_refusal_extras_missing():

@@ -113,12 +113,30 @@ def test_planck_kernel_and_poly_samplers_agree():
     q = np.linspace(0.05, 0.95, 10)
     assert np.allclose(np.quantile(E_poly, q), np.quantile(E_table, q),
                        rtol=0.02)
-    if jax.default_backend() == "tpu":  # pltpu PRNG is zeros in interpret
-        E_kern = np.asarray(light.planck_sample_E(
-            100_000, a, b, T, bins=2000, device=True,
-            device_method="kernel"))
-        assert np.allclose(np.quantile(E_kern, q), np.quantile(E_poly, q),
-                           rtol=0.02)
+    E_dev = np.asarray(light.PlanckSampler(a, b, T, bins=2000)
+                       .sample_device(7, 100_000))
+    assert np.allclose(np.quantile(E_dev, q), np.quantile(E_table, q),
+                       rtol=0.02)
+
+
+def test_sample_device_follows_polynomial_law():
+    """``PlanckSampler.sample_device(seed, n)`` is the piecewise-poly
+    inverse CDF on ``jax.random`` uniforms of ``PRNGKey(seed)``: bitwise the
+    poly sampler's output, in the window, and reproducible per seed."""
+    import jax
+
+    T = 5778.0
+    kT = float(light.kB.value()) * T
+    a, b = 0.5 * kT, 8 * kT
+    sampler = light.PlanckSampler(a, b, T, bins=500)
+    E = np.asarray(sampler.sample_device(3, 4096))
+    want = np.asarray(light._planck_poly(a, b, T, 500)(
+        jax.random.PRNGKey(3), 4096))
+    np.testing.assert_array_equal(E, want)
+    assert E.shape == (4096,) and (E >= a * (1 - 1e-6)).all() \
+        and (E <= b * (1 + 1e-6)).all()
+    np.testing.assert_array_equal(E, np.asarray(sampler.sample_device(3, 4096)))
+    assert not np.array_equal(E, np.asarray(sampler.sample_device(4, 4096)))
 
 
 def test_poly_icdf_accuracy_vs_exact_inverse():

@@ -15,9 +15,7 @@ def _n_dev():
     return len(jax.devices())
 
 
-pytestmark = pytest.mark.skipif(
-    "jax.device_count() < 8",
-    reason="needs 8 devices (virtual CPU mesh or a TPU slice)")
+pytestmark = pytest.mark.usefixtures("eight_devices")
 
 
 def test_virtual_devices_present():
@@ -142,7 +140,6 @@ def test_sharded_emitter_full_arena_stops_cleanly():
     assert counts["auto"][:3] == [n0 + 10000, n0 + 20000, n0 + 20000]
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_sharded_fused_trace_stream():
     """Stream planes (path trace) under shard_map: per-photon outputs stay
     sharded with the photons; the assembled matrix covers every shard."""

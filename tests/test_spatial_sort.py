@@ -1,17 +1,13 @@
 """Spatial population sort (``Simulation(spatial_sort=K)``).
 
-The fused voxel-table lookup is a dynamic row-RANGE walk whose cost is
-set by each tile's flat-index spread (ops/fused._vmem_table_lookup), so
-periodically reordering the population by flat voxel index collapses the
-locality-free worst case to near-beam walk costs — the classic particle
-sort of event-based Monte Carlo transport, keyed to our x-major table
-layout (on-chip r5: 64^3 nearest uniform/isotropic 2.28e8 -> 1.07e9
-photon-steps/s). These tests pin the slot contract (a pure reorder that
+Periodically reordering the population by flat voxel index makes each
+kernel block gather from a narrow band of the voxel table — the classic
+particle sort of event-based Monte Carlo transport, keyed to our x-major
+table layout. These tests pin the slot contract (a pure reorder that
 preserves ``n_spawned`` and the free tail), physics neutrality, exact
 fused-vs-generic parity when both paths sort, and the structured
 refusals. The reference has no counterpart (its population is a Python
-list, physicl/__init__.py:443-459); the feature exists because of the
-TPU table-walk design.
+list, physicl/__init__.py:443-459).
 """
 
 import warnings

@@ -1,5 +1,5 @@
 """Population-control variance reduction: ImportanceSplitStep /
-WeightWindowStep (TPU extension — the reference has no variance reduction;
+WeightWindowStep (extension — the reference has no variance reduction;
 these complete the MCNP-style toolkit next to implicit capture, roulette,
 and source biasing).
 

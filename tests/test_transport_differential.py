@@ -12,7 +12,7 @@ configurations:
 * absorption: survival fractions agree within combined binomial error;
 * isotropic scattering: the +x sign-balance relaxation trajectories agree.
 
-RNG streams differ (host numpy vs TPU-style counter PRNG), so stochastic
+RNG streams differ (host numpy vs the device's counter-based PRNG), so stochastic
 comparisons are statistical — but both sides must also sit on the shared
 analytic law, which catches one-sided bugs a two-sample test can absorb.
 Skipped when the reference tree is absent. Population sizes are kept small:

@@ -210,7 +210,7 @@ def test_auto_shrink_disabled_by_trace_step():
 
 
 def test_checkpoint_typed_key_roundtrip(tmp_path):
-    """prng_impl="rbg" (the TPU-backend default for the generic path)
+    """prng_impl="rbg" (an opt-in generator for the generic path)
     produces typed key arrays; checkpoints serialize them as raw key
     data + impl name and restore an identical key."""
     import jax

@@ -2,7 +2,7 @@
 implicit capture (survival biasing), Russian roulette, and weighted tallies.
 
 The reference is purely analog (a photon either survives or is deleted,
-physicl/light.py:146-158); weights are a TPU extension. Key invariants:
+physicl/light.py:146-158); weights are a extension. Key invariants:
 
 * implicit capture is DETERMINISTIC: a monoenergetic beam in a uniform
   absorber has total weight exactly N*(1-p)^k after k iterations — both

@@ -1,7 +1,7 @@
 """float64 state on the generic path (VERDICT round-1 weak item 7).
 
 ``jax_enable_x64`` is process-global, so the run happens in a subprocess.
-The fused kernel is f32 by design (TPU-native); ``Simulation(dtype=f64)``
+The fused kernel is f32 by design; ``Simulation(dtype=f64)``
 must work end-to-end on the generic scan and actually carry f64 precision.
 """
 
